@@ -1,6 +1,6 @@
-"""embree_tpu — a TPU-native differentiable ray-tracing framework.
+"""embree_tpu — a differentiable ray-tracing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 reference CPU library (Embree 3.0.0 fork `lispbub/embree-compressed`,
 the HPG compressed-subdivision-surface paper): SAH BVH build, compressed
 quantized per-patch BVHs for displaced Catmull-Clark subdivision surfaces,

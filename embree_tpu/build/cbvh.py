@@ -5,7 +5,7 @@ Re-implements the fork's compressed, quantized per-tile hierarchy
 compressed_node.h "com" 4-byte nodes, compressed_leaf.h pizza-box leaves,
 bvh_builder_subdiv.cpp:685-884 oriented builder) as dense *batched* numpy
 passes: every tile has identical shape ((2^cl)^2 cells), so the whole
-scene's tiles build as one vectorized computation — the TPU-native
+scene's tiles build as one vectorized computation — the batched
 formulation of the reference's per-tile recursive loop.
 
 Pipeline per tile (batched over all tiles):

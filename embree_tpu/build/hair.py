@@ -5,7 +5,7 @@ strand directions (bvh_builder_hair.cpp, bvh.h:971 UnalignedNode,
 heuristic_binning_array_unaligned.h): axis-aligned boxes around diagonal
 hair strands are mostly empty, so OBBs cut traversal work several-fold.
 
-TPU-native re-design: instead of a per-node affine space (a per-pop 3x3
+Batched re-design: instead of a per-node affine space (a per-pop 3x3
 transform — hostile to the batched node test), curves are CLUSTERED by
 strand direction over a fixed set of 13 canonical orientations (axes +
 face diagonals + body diagonals, sign-collapsed). Each cluster gets one

@@ -2,7 +2,7 @@
 
 The analog of the reference's morton builder
 (kernels/builders/bvh_builder_morton.h: 30-bit codes :77, radix sort,
-bottom-up merge), re-designed for TPU: the whole build is jnp ops that run
+bottom-up merge), re-designed for the device: the whole build is jnp ops that run
 ON DEVICE — code computation, one argsort, and an implicit complete 4-ary
 tree over the sorted order whose bounds come from pure reshape/min/max
 reductions. No host round-trip, so dynamic scenes can rebuild every frame

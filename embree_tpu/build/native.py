@@ -1,15 +1,16 @@
 """ctypes binding for the native C++ SAH builder (native/sah_builder.cpp).
 
-Compiles the shared library on demand (g++ is in the image; no external
-deps). Falls back to the python frontier builder when the toolchain or
-library is unavailable — the builder selection knob is the device config
-`tri_accel=bvh4.triangle4` vs explicit `builder=python` (state key via
-`unknown`), mirroring the reference's accel-override strings.
+Compiles the shared library at first use with g++ into native/build/,
+keyed on a hash of the source, the flags and the host CPU: -march=native
+code is only ever loaded on the kind of host that built it. A failed
+build raises; `builder=python` selects the numpy builder explicitly.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -20,61 +21,76 @@ from .bvh import BVHArraysNP
 _here = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SRC = os.path.join(_here, "native", "sah_builder.cpp")
-_SO = os.path.join(_here, "native", "libet_sah.so")
+_BUILD_DIR = os.path.join(_here, "native", "build")
+_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+          "-pthread"]
 
 _lib = None
 _lock = threading.Lock()
-_failed = False
 
 
-def _load():
-    global _lib, _failed
+def _host_cpu() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "flags")):
+                    return line
+    except OSError:
+        pass
+    return platform.processor() or platform.machine()
+
+
+def library_path() -> str:
+    with open(_SRC, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()
+                             + _host_cpu().encode()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libet_sah_{key}.so")
+
+
+def load_library():
+    global _lib
     with _lock:
-        if _lib is not None or _failed:
+        if _lib is not None:
             return _lib
-        try:
-            if not os.path.exists(_SO) or (
-                    os.path.exists(_SRC)
-                    and os.path.getmtime(_SRC) > os.path.getmtime(_SO)):
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-                     "-fPIC", "-pthread", _SRC, "-o", _SO],
-                    check=True, capture_output=True)
-            lib = ctypes.CDLL(_SO)
-            lib.et_build_sah.restype = ctypes.c_void_p
-            lib.et_build_sah.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float]
-            lib.et_build_sah_tri.restype = ctypes.c_void_p
-            lib.et_build_sah_tri.argtypes = [
-                ctypes.POINTER(ctypes.c_float)] * 5 + [
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float]
-            lib.et_num_refs.restype = ctypes.c_int64
-            lib.et_num_refs.argtypes = [ctypes.c_void_p]
-            lib.et_num_nodes.restype = ctypes.c_int64
-            lib.et_num_nodes.argtypes = [ctypes.c_void_p, ctypes.c_int]
-            lib.et_get_arrays.restype = None
-            lib.et_get_arrays.argtypes = [ctypes.c_void_p] + \
-                [ctypes.POINTER(ctypes.c_float)] * 2 + \
-                [ctypes.POINTER(ctypes.c_int32)] * 3
-            lib.et_free.argtypes = [ctypes.c_void_p]
-            _lib = lib
-        except Exception:
-            _failed = True
+        so = library_path()
+        if not os.path.exists(so):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"native SAH builder failed to compile:\n{proc.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        lib.et_build_sah.restype = ctypes.c_void_p
+        lib.et_build_sah.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float]
+        lib.et_build_sah_tri.restype = ctypes.c_void_p
+        lib.et_build_sah_tri.argtypes = [
+            ctypes.POINTER(ctypes.c_float)] * 5 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float]
+        lib.et_num_refs.restype = ctypes.c_int64
+        lib.et_num_refs.argtypes = [ctypes.c_void_p]
+        lib.et_num_nodes.restype = ctypes.c_int64
+        lib.et_num_nodes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.et_get_arrays.restype = None
+        lib.et_get_arrays.argtypes = [ctypes.c_void_p] + \
+            [ctypes.POINTER(ctypes.c_float)] * 2 + \
+            [ctypes.POINTER(ctypes.c_int32)] * 3
+        lib.et_free.argtypes = [ctypes.c_void_p]
+        _lib = lib
     return _lib
-
-
-def native_available() -> bool:
-    return _load() is not None
 
 
 def build_sah_native(prim_lower: np.ndarray, prim_upper: np.ndarray,
                      branching: int = 4, max_leaf: int = 4,
                      min_leaf: int = 1,
                      spatial_factor: float = 1.0,
-                     tri_verts=None) -> BVHArraysNP | None:
+                     tri_verts=None) -> BVHArraysNP:
     """spatial_factor > 1 enables BINNED SPATIAL SPLITS (SBVH,
     RTC_BUILD_QUALITY_HIGH; heuristic_spatial_array.h semantics): every
     range evaluates both the 32-bin object split and a 16-bin spatial
@@ -87,9 +103,7 @@ def build_sah_native(prim_lower: np.ndarray, prim_upper: np.ndarray,
     then holds up to spatial_factor * P entries with repeats — leaves
     referencing a duplicated prim test it more than once, harmless for
     correctness."""
-    lib = _load()
-    if lib is None:
-        return None
+    lib = load_library()
     lo = np.ascontiguousarray(prim_lower, np.float32)
     hi = np.ascontiguousarray(prim_upper, np.float32)
     P = lo.shape[0]

@@ -275,24 +275,21 @@ def build_sah(prim_lower: np.ndarray, prim_upper: np.ndarray,
               backend: str = "default", tri_verts=None) -> BVHArraysNP:
     """Full pipeline: binary SAH build + collapse to wide BVH.
 
-    backend: "default"/"native" prefer the C++ builder (~400x the numpy
-    frontier builder); "python" forces the numpy path (tests/fallback)."""
+    backend: "default"/"native" use the C++ builder (~400x the numpy
+    frontier builder) and raise if it cannot be built; "python" selects
+    the numpy path."""
     prim_lower = np.asarray(prim_lower, np.float32)
     prim_upper = np.asarray(prim_upper, np.float32)
     if prim_lower.shape[0] == 0:
         return empty_bvh_np(settings.branching_factor)
     if backend in ("default", "native"):
         from .native import build_sah_native
-        out = build_sah_native(prim_lower, prim_upper,
-                               branching=settings.branching_factor,
-                               max_leaf=settings.max_leaf_size,
-                               min_leaf=settings.min_leaf_size,
-                               spatial_factor=settings.spatial_factor,
-                               tri_verts=tri_verts)
-        if out is not None:
-            return out
-        if backend == "native":
-            raise RuntimeError("native builder unavailable")
+        return build_sah_native(prim_lower, prim_upper,
+                                branching=settings.branching_factor,
+                                max_leaf=settings.max_leaf_size,
+                                min_leaf=settings.min_leaf_size,
+                                spatial_factor=settings.spatial_factor,
+                                tri_verts=tri_verts)
     child2, nlo2, nhi2, order, root_ref, leaf_mult = build_bvh2(
         prim_lower, prim_upper, settings)
     return collapse_to_wide(child2, nlo2, nhi2, order, root_ref, leaf_mult,

@@ -9,7 +9,7 @@ the top level over the opened entry set. Opening trades a few more
 top-level prims for drastically less overlap — the SAH gap between a
 two-level build and a fully flattened build collapses.
 
-TPU-native use: the opened entry set serves two roles —
+Use here: the opened entry set serves two roles —
   1. build-quality parity: the top-level SAH cost gate
      (tests/test_instances_user.py);
   2. traversal culling: scene_intersect's per-instance fold slab-tests

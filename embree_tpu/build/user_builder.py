@@ -2,7 +2,7 @@
 
 Re-expression of reference kernels/common/rtcore_builder.cpp:97-425
 (`rtcBuildBVH`, `RTCBuildArguments`, quality dispatch morton/sah/spatial)
-for the TPU framework: the caller supplies primitive bounds plus node/leaf
+for this framework: the caller supplies primitive bounds plus node/leaf
 construction callbacks and gets back their own tree built with the same
 quality tiers the scene builders use:
 

@@ -1,16 +1,17 @@
 """Core vector/bbox math on JAX arrays (SoA-last-axis convention).
 
-TPU-native re-expression of the reference's `common/math` layer
+Re-expression of the reference's `common/math` layer
 (`vec3.h`, `bbox.h`, `affinespace.h`). Vectors are plain jnp arrays whose
 *last* axis has size 3; every helper broadcasts over leading axes, so the
 same code path serves one ray or a (8, 128) packet. There is no SIMD
-wrapper layer (reference `common/simd/*`): XLA's VPU vectorization plays
+wrapper layer (reference `common/simd/*`): XLA's vectorization plays
 that role.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -18,6 +19,12 @@ import numpy as np
 # NaN-free inside jitted code while compare semantics stay identical.
 INF = jnp.float32(np.inf)
 NEG_INF = jnp.float32(-np.inf)
+
+
+def matmul(a, b):
+    """Full-precision f32 product for ray, point and normal transforms;
+    a GPU would otherwise run it in TF32 (~1e-3 relative)."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def dot(a, b):

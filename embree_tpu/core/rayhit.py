@@ -1,7 +1,7 @@
 """Ray / hit containers (SoA pytrees).
 
 Analog of the reference internal ray layout (kernels/common/ray.h): rays are
-stored struct-of-arrays with an arbitrary batch shape, the TPU-native
+stored struct-of-arrays with an arbitrary batch shape, the batched
 generalization of embree's RayK<K> packets. INVALID_ID == -1 stands in for
 RTC_INVALID_GEOMETRY_ID (0xFFFFFFFF).
 """

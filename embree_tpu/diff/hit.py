@@ -36,13 +36,11 @@ def _gather_rows_fwd(table, idx):
 
 
 def _gather_rows_bwd(res, ct):
-    # XLA's native gather-VJP is an unsorted scatter-add — measured
-    # 362 ms for 1M rows -> 500k on the v5e. Sorting the cotangent
-    # COLUMNS along with the index in ONE variadic lax.sort (payload
-    # sort, not argsort+take: 1M-row takes cost ~13 ms each on this
-    # chip while a keyed payload sort is ~7 ms total) and summing with
-    # indices_are_sorted=True makes the reduction sequential traffic.
-    # This column-split form requires the (rows, cols) gather shape the
+    # Instead of XLA's native gather-VJP (an unsorted scatter-add), the
+    # cotangent COLUMNS are sorted along with the index in ONE variadic
+    # lax.sort and summed with indices_are_sorted=True. Whether this
+    # beats the plain scatter-add on the GPU is not measured yet. This
+    # column-split form requires the (rows, cols) gather shape the
     # forward produces from 1-D idx.
     assert ct.ndim == 2, (
         "_gather_rows backward expects a rank-2 cotangent (1-D row "
@@ -51,9 +49,7 @@ def _gather_rows_bwd(res, ct):
     idx, T = res
     ops = (idx,) + tuple(ct[:, j] for j in range(ct.shape[1]))
     s = jax.lax.sort(ops, num_keys=1)
-    # one flat (N,) segment_sum per column: the stacked (N, C) form puts
-    # C in the minor dim — measured 1.8x slower on v5e (575 vs 313 ms at
-    # 6M rows)
+    # one flat (N,) segment_sum per column rather than one stacked (N, C)
     g = jnp.stack([jax.ops.segment_sum(c, s[0], num_segments=T,
                                        indices_are_sorted=True)
                    for c in s[1:]], axis=-1)
@@ -66,8 +62,8 @@ _gather_rows.defvjp(_gather_rows_fwd, _gather_rows_bwd)
 def reeval_hit(tris: TrianglePrims, rays: Rays, gprim, valid) -> Hits:
     """Recompute (t, u, v, Ng, P) differentiably for the selected prim."""
     p = jnp.maximum(gprim, 0)
-    # one packed gather instead of three (v5e gather cost is per-op);
-    # grads flow back through the concat as cheap slices
+    # one packed gather instead of three; grads flow back through the
+    # concat as cheap slices
     packf = jnp.concatenate([tris.v0, tris.v1, tris.v2], axis=-1)  # (T, 9)
     g = _gather_rows(packf, p)
     v0, v1, v2 = g[..., 0:3], g[..., 3:6], g[..., 6:9]

@@ -1,14 +1,14 @@
-"""Primitive-sharded scenes: ray ppermute ring over ICI.
+"""Primitive-sharded scenes: ray ppermute ring over the device mesh.
 
 The second distributed mode from SURVEY.md §2.7 (the reference has no
 distributed layer at all — its parallelism stops at threads on one
-host): when the scene does not fit one chip's HBM, the *primitives* are
+host): when the scene does not fit one card's memory, the *primitives* are
 sharded across the mesh axis instead of replicated. Each device builds
 and holds a BVH over its spatially-contiguous chunk (morton-ordered
 centroid split for locality), and the *rays* travel: D ring steps of
 `jax.lax.ppermute` rotate each ray block (with its current best hit)
 around the axis, so every ray meets every scene shard while all
-transfers ride neighbor-to-neighbor ICI links. After D hops the rays
+transfers are neighbor-to-neighbor (NVLink between GPUs). After D hops the rays
 are back home with the global closest hit.
 
 Bandwidth argument: rays+hits are ~30 floats/ray; a scene shard is
@@ -170,8 +170,6 @@ def make_prim_sharded_intersect(mesh: Mesh, axis: str = "sp",
     """Returns intersect(ps_scene, rays) -> Hits with rays AND scene both
     sharded on `axis`: D ring steps, each intersecting the resident shard
     and ppermute-rotating (rays, best hit) to the right neighbor."""
-    from jax.experimental.shard_map import shard_map
-
     from ..traverse.packet import intersect_chunked
 
     D = mesh.shape[axis]
@@ -202,10 +200,10 @@ def make_prim_sharded_intersect(mesh: Mesh, axis: str = "sp",
         # D hops of +1 on a ring of size D => every block is home again
         return best
 
-    return shard_map(
+    return jax.shard_map(
         local, mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
-        out_specs=P(axis), check_rep=False)
+        out_specs=P(axis), check_vma=False)
 
 
 def prim_sharded_intersect(ps: PrimShardedScene, rays: Rays, mesh: Mesh,

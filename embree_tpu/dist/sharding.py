@@ -2,14 +2,12 @@
 
 The distributed design the reference never had (SURVEY.md §2.7): rays and
 image tiles are sharded over the `dp` mesh axis with shard_map; the
-scene/BVH is replicated per device (primitive-sharding with a ray
-ppermute ring is the planned second mode). Gradients all-reduce with
-jax.lax.psum over ICI; XLA overlaps the collective with the backward
-computation when possible.
+scene/BVH is replicated per device (primitive sharding with a ray
+ppermute ring is dist/prim_shard.py). Gradients all-reduce with
+jax.lax.psum, which XLA hands to NCCL on GPUs.
 
-Works identically on a real TPU slice and on the
-`--xla_force_host_platform_device_count=N` CPU mesh used by tests and by
-the driver's dryrun_multichip.
+Works identically on several GPUs and on the
+`--xla_force_host_platform_device_count=N` CPU mesh used by the tests.
 """
 from __future__ import annotations
 
@@ -54,20 +52,18 @@ def shard_rays(rays: Rays, mesh: Mesh, axis: str = "dp"):
 def sharded_intersect(cs: CommittedScene, rays: Rays, mesh: Mesh,
                       axis: str = "dp", isa: str = "default") -> Hits:
     """DP intersect: each device traverses its ray shard against the
-    replicated accel (the reference's tile parallel_for, across chips)."""
-    from jax.experimental.shard_map import shard_map
-
+    replicated accel (the reference's tile parallel_for, across cards)."""
     def local(cs, org, d, tn, tf):
         return scene_intersect(cs, Rays(org, d, tn, tf), isa=isa)
 
-    f = shard_map(local, mesh=mesh,
-                  in_specs=(P(), P(axis), P(axis), P(axis), P(axis)),
-                  out_specs=P(axis), check_rep=False)
+    f = jax.shard_map(local, mesh=mesh,
+                      in_specs=(P(), P(axis), P(axis), P(axis), P(axis)),
+                      out_specs=P(axis), check_vma=False)
     return f(cs, rays.org, rays.dir, rays.tnear, rays.tfar)
 
 
 def all_reduce_grads(grads, axis: str = "dp"):
-    """Gradient all-reduce over ICI (inside shard_map/pjit)."""
+    """Gradient all-reduce over the mesh axis (inside shard_map)."""
     return jax.tree.map(lambda g: jax.lax.psum(g, axis), grads)
 
 
@@ -75,28 +71,28 @@ def make_sharded_train_step(mesh: Mesh, loss_fn: Callable, axis: str = "dp"):
     """Builds a pjit-style training step: rays+targets sharded on `axis`,
     params replicated, grads psum'd over the mesh.
 
-    loss_fn(params, rays, target) -> scalar local loss. The returned step
-    is a single compiled function (no host python in the loop), per the
-    >=85% scaling-efficiency requirement in BASELINE.md.
+    loss_fn(params, rays, target, *consts) -> scalar local loss, where
+    `consts` (e.g. the committed scene) are replicated arguments of the
+    step rather than constants captured in its program. The returned
+    step is a single compiled function (no host python in the loop).
     """
-    from jax.experimental.shard_map import shard_map
-
-    def local_step(params, org, d, tn, tf, target):
+    def local_step(params, org, d, tn, tf, target, consts):
         rays = Rays(org, d, tn, tf)
-        loss, grads = jax.value_and_grad(loss_fn)(params, rays, target)
+        loss, grads = jax.value_and_grad(loss_fn)(params, rays, target,
+                                                  *consts)
         loss = jax.lax.psum(loss, axis)
         grads = all_reduce_grads(grads, axis)
         return loss, grads
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_step, mesh=mesh,
-        in_specs=(P(), P(axis), P(axis), P(axis), P(axis), P(axis)),
-        out_specs=(P(), P()), check_rep=False)
+        in_specs=(P(), P(axis), P(axis), P(axis), P(axis), P(axis), P()),
+        out_specs=(P(), P()), check_vma=False)
 
     @jax.jit
-    def step(params, rays: Rays, target, lr=1e-3):
+    def step(params, rays: Rays, target, *consts, lr=1e-3):
         loss, grads = sharded(params, rays.org, rays.dir, rays.tnear,
-                              rays.tfar, target)
+                              rays.tfar, target, consts)
         new_params = jax.tree.map(lambda p, g: p - lr * g, params, grads)
         return loss, new_params
 

@@ -8,7 +8,7 @@ distribution and conductor fresnel, :601-626), REFLECTIVE_METAL
 (delta mirror x conductor fresnel, :640-643), VELVET (horizon-scatter
 lobe, :164-196), METALLIC_PAINT (dielectric-coated lambertian,
 :741-760). All materials live in one SoA table; sampling/eval are
-branch-free masked ops over the whole wavefront (the TPU analog of the
+branch-free masked ops over the whole wavefront (the batched analog of the
 reference's per-material virtual dispatch).
 """
 from __future__ import annotations

@@ -6,7 +6,7 @@ sphere's triangle mesh is created and committed the first time a ray
 enters its bounds (lazyCreate :120-160, state machine LAZY_INVALID →
 LAZY_CREATE → LAZY_COMMIT → LAZY_VALID :29-35).
 
-TPU-native re-expression: the reference's per-ray lazy trigger is a
+Batched re-expression: the reference's per-ray lazy trigger is a
 divergent host callback — hostile to a batched traced pipeline — so the
 laziness is moved to wavefront granularity: each frame first traces
 against the bounds proxies, then builds (host-side) the sphere meshes

@@ -1,7 +1,7 @@
 """pathtracer tutorial: wavefront Monte Carlo path tracer.
 
 Re-designs tutorials/pathtracer/pathtracer_device.cpp (renderPixelFunction
-:1442-1546) as a WAVEFRONT integrator — the TPU-native formulation: every
+:1442-1546) as a WAVEFRONT integrator — the batched formulation: every
 pixel advances through the bounce loop in lock-step, each bounce is one
 batched intersect + one batched NEE shadow pass (the reference's
 per-pixel recursion maps to masked whole-image ops). Semantics kept:

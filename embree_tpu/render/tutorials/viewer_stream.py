@@ -4,9 +4,8 @@ Recreates tutorials/viewer_stream/viewer_stream_device.cpp: the same
 scene/shading as `viewer`, but each tile's rays go through the large
 ray-stream entry (`rtcIntersect1M`, :200-260 renderTileStandardStream)
 instead of per-pixel rtcIntersect1.  Here the whole frame is one flat
-stream: rays are octant+morton sorted (traverse/stream.py — the
-reference's stream filters/frustum stage) and traced as one batch, which
-is exactly the coherent formulation the TPU kernels want.
+stream traced as one batch: the kernel walks one ray per thread, so
+the stream needs no reordering.
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ against embree's call shapes ports mechanically:
 
 Rays/hits are the framework's batched pytrees — the packet/stream API
 family (rtcIntersect1/4/8/16/1M) collapses into one batched entry, which
-is the TPU-native expression of all of them.
+is the batched expression of all of them.
 """
 from __future__ import annotations
 

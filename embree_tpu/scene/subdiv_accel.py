@@ -220,7 +220,7 @@ def fused_normal_table(ev: SubdivEval):
     """Pre-gather the normals through the per-patch index grids ONCE:
     (P*(G+1)^2, 3) rows addressable by flat (patch, i, j) arithmetic.
     Turns the per-hit double gather (grids then normals — 8 1M-row
-    gathers per frame, ~13 ms each on v5e) into 4 single row gathers;
+    gathers per frame) into 4 single row gathers;
     the viewer's smooth-normal pass was ~37% of the bomberman frame."""
     return ev.normals[ev.grids.reshape(-1)]
 

@@ -6,7 +6,7 @@ _SEGMENTS=8, generation tags, size set by the `tessellation_cache_size`
 device config) so lazy subdiv accels and rtcInterpolate eval trees can
 recompute-on-miss instead of persisting everything.
 
-TPU-native re-expression: the expensive recomputable artifact here is the
+Re-expression: the expensive recomputable artifact here is the
 *subdivision plan* (topology refinement stencils + patch grids —
 commit-time host work, subdiv/core.py plan_subdivision), which depends
 only on topology + level, not vertex positions.  Re-commits of the same

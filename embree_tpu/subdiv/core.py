@@ -1,6 +1,6 @@
 """Catmull-Clark subdivision core (topology + uniform refinement).
 
-TPU-first re-design of the reference's subdivision stack
+Batched re-design of the reference's subdivision stack
 (kernels/subdiv/*): instead of per-patch feature-adaptive evaluation
 (catmullclark_ring.h / patch_eval_grid.h), we run **global uniform
 subdivision** of the whole control cage, L levels deep — exactly the

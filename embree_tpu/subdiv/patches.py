@@ -1,6 +1,6 @@
 """Analytic limit-surface patch evaluation with derivatives.
 
-The TPU-native analog of the reference's patch stack
+The batched analog of the reference's patch stack
 (kernels/subdiv/bspline_patch.h:503, patch.h:51-78, patch_eval.h,
 feature_adaptive_eval.h): rtcInterpolate-style evaluation of the
 Catmull-Clark limit surface P(face, u, v) with first AND second

@@ -218,7 +218,7 @@ def tessellate_mesh_to_triangles_levels(mesh, edge_levels,
     RTC_BUFFER_TYPE_LEVEL path (rtcore_geometry.h LEVEL buffer;
     tessellation.h:77 stitchUVGrid semantics).
 
-    TPU-native formulation: refine uniformly to the power-of-two level
+    Batched formulation: refine uniformly to the power-of-two level
     covering the LARGEST requested rate, then per-face SUBSAMPLE the
     shared fine grid at the face's own rate, and per-edge SNAP boundary
     samples to the edge's (coarser) rate. Because every sample is an

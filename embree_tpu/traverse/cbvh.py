@@ -35,7 +35,7 @@ import numpy as np
 from ..build.bvh import BVH
 from ..build.cbvh import (TABLE_BORDER, TABLE_MID, TABLE_Z, CompressedTiles,
                           morton2_decode)
-from ..core.math import rcp_safe, ROBUST_MAX_RCP, ROBUST_MIN_RCP
+from ..core.math import matmul, rcp_safe, ROBUST_MAX_RCP, ROBUST_MIN_RCP
 from ..core.rayhit import Hits, Rays
 
 INF = jnp.float32(np.inf)
@@ -58,7 +58,7 @@ class _CHit(NamedTuple):
 
 def _xfm(m, p):
     """Batched xfmPoint for a scalar 3x3 `m` and (R, 3) points."""
-    return p @ m.T
+    return matmul(p, m.T)
 
 
 def _project(p, H):

@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.math import matmul
 from ..core.rayhit import Rays
 
 
@@ -172,7 +173,7 @@ def intersect_hair_clusters(clusters, fns, rays: Rays, t_in, geom_id,
     pops_total = jnp.int32(0)
     for cl, fn in zip(clusters, fns):
         Rm = jnp.asarray(cl.rot)
-        rrays = Rays(org @ Rm, d @ Rm, tn, t)
+        rrays = Rays(matmul(org, Rm), matmul(d, Rm), tn, t)
         res = intersect_user(
             UserAccel(cl.bvh, geom_id, int(cl.members.shape[0])), fn,
             rrays, t, with_stats=with_stats)
@@ -185,7 +186,7 @@ def intersect_hair_clusters(clusters, fns, rays: Rays, t_in, geom_id,
         t = jnp.where(use, tc, t)
         u = jnp.where(use, uc, u)
         v = jnp.where(use, vc, v)
-        ng = jnp.where(use[..., None], ngc @ Rm.T, ng)
+        ng = jnp.where(use[..., None], matmul(ngc, Rm.T), ng)
         # pc indexes the cluster's member list -> global curve id
         mem = jnp.asarray(cl.members)
         gcurve = mem[jnp.maximum(pc, 0)]

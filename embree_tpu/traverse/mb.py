@@ -161,8 +161,7 @@ def intersect_mb(accel: MBAccel, rays: Rays, time,
 
 
 def _finalize_mb(accel: MBAccel, rays: Rays, t, prim, tm) -> Hits:
-    """Finalize (t, winning prim) against time-interpolated triangles —
-    shared by the XLA and Pallas MB traversals."""
+    """Finalize (t, winning prim) against time-interpolated triangles."""
     S = accel.num_timesteps
     org = rays.org.reshape(-1, 3)
     direction = rays.dir.reshape(-1, 3)

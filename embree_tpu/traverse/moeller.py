@@ -11,8 +11,7 @@ Exact semantics of the reference's precomputed-cross variant
     u = U/|den|, v = V/|den|, t = T/|den|                    (:42-47 finalize)
 
 The division is deferred exactly like the reference (sign-flip instead of
-divide), which keeps the test watertight-ish in fp32 and branch-free for
-the VPU. Broadcasts a single triangle against any ray batch shape, or
+divide), which keeps the test watertight-ish in fp32 and branch-free. Broadcasts a single triangle against any ray batch shape, or
 triangle batches against matching ray batches.
 """
 from __future__ import annotations

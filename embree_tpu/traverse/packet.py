@@ -1,14 +1,13 @@
 """Shared-stack ray-packet BVH traversal (pure JAX, jittable).
 
-The TPU-native generalization of the reference's packet traversal
+A generalization of the reference's packet traversal
 (kernels/bvh/bvh_intersector_hybrid.cpp + bvh_intersector1.cpp:41-127):
-an entire packet of rays (default 1024 = one 8x128 VPU tile) walks the BVH
-in lock-step behind ONE scalar traversal stack. A node is visited when any
-ray in the packet intersects its box; leaf triangles are broadcast against
-the whole packet. This gives scalar (SMEM-friendly) node fetches and fully
-vectorized box/triangle tests — no per-lane gathers, the pattern the VPU
-wants. Divergence is handled upstream by octant/morton ray sorting
-(traverse/stream.py), the analog of the reference's stream filters.
+an entire packet of rays (default 1024) walks the BVH in lock-step behind
+ONE scalar traversal stack. A node is visited when any ray in the packet
+intersects its box; leaf triangles are broadcast against the whole
+packet: scalar node fetches and fully vectorized box/triangle tests, no
+per-lane gathers. This is the CPU path and the reference that the CUDA
+kernel (traverse/gpu.py) is checked against; masks and filters run here.
 
 Semantics preserved from the reference:
   * distance-sorted child push so the nearest child pops first
@@ -187,8 +186,7 @@ def _finalize_hits(tris: TrianglePrims, rays: Rays, t, prim) -> Hits:
     """Recompute u/v/Ng from the winning prim (differentiable re-eval).
 
     Vertex/meta tables are packed (concat over the small prim axis is
-    ~free) so the per-ray random access is 2 gather ops instead of 6 —
-    gather cost on v5e is per-op, not per-byte."""
+    ~free) so the per-ray random access is 2 gather ops instead of 6."""
     valid = prim >= 0
     p = jnp.maximum(prim, 0)
     packf = jnp.concatenate([tris.v0, tris.v1, tris.v2], axis=-1)  # (T, 9)

@@ -4,8 +4,8 @@ Analog of kernels/geometry/object.h + object_intersector.h: user prims
 are wrapped by a regular BVH; reaching a leaf invokes the user's
 intersect function for each prim against the whole packet (the C
 callback ABI becomes a traced jax function). XLA path only — user
-callbacks are arbitrary traced code, not packable into the pallas
-kernels (same boundary as the reference, where user geometry always
+callbacks are arbitrary traced code that cannot run inside the CUDA
+kernel (same boundary as the reference, where user geometry always
 calls back into app code).
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """buildbench: BVH build performance microbench.
 
 Analog of tutorials/buildbench/buildbench_device.cpp: static create
-(:265), dynamic create (:225), update/refit (:186) — plus the TPU
-additions: device-side morton rebuild and jit'd refit. Prints greppable
+(:265), dynamic create (:225), update/refit (:186) — plus this
+framework's additions: device-side morton rebuild and jit'd refit. Prints greppable
 BENCHMARK_BUILD_* keys (the reference's key-line convention).
 
 Run: python -m embree_tpu.verify.buildbench [num_prims]

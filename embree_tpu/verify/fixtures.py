@@ -93,3 +93,34 @@ def subdiv_cube():
         [1, 5, 6, 2], [2, 6, 7, 3], [3, 7, 4, 0]], np.int32)
     counts = np.full(6, 4, np.int32)
     return verts, counts, faces.reshape(-1)
+
+
+def bruteforce_closest(v0, v1, v2, org, d, eps: float = 1e-9):
+    """Float64 all-pairs closest hit, independent of every BVH and of the
+    float32 Moeller-Trumbore test: (t, prim) per ray, prim = -1 on a miss.
+    Rays within `eps` (barycentric) of an edge count as hits."""
+    v0, v1, v2 = (np.asarray(a, np.float64) for a in (v0, v1, v2))
+    e1 = v1 - v0
+    e2 = v2 - v0
+    ng = np.cross(e1, e2)
+    d00 = np.einsum("ij,ij->i", e1, e1)
+    d01 = np.einsum("ij,ij->i", e1, e2)
+    d11 = np.einsum("ij,ij->i", e2, e2)
+    det = d00 * d11 - d01 * d01
+    ts = np.full(len(org), np.inf)
+    prims = np.full(len(org), -1, np.int64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for r, (o, dd) in enumerate(zip(np.asarray(org, np.float64),
+                                        np.asarray(d, np.float64))):
+            t = np.einsum("ij,ij->i", ng, v0 - o) / (ng @ dd)
+            w = o + t[:, None] * dd - v0
+            d20 = np.einsum("ij,ij->i", w, e1)
+            d21 = np.einsum("ij,ij->i", w, e2)
+            u = (d11 * d20 - d01 * d21) / det
+            v = (d00 * d21 - d01 * d20) / det
+            ok = ((t > 0) & (u >= -eps) & (v >= -eps)
+                  & (u + v <= 1 + eps) & np.isfinite(t))
+            if ok.any():
+                k = int(np.argmin(np.where(ok, t, np.inf)))
+                ts[r], prims[r] = t[k], k
+    return ts, prims

@@ -138,29 +138,3 @@ def test_obb_beats_aabb_on_diagonal_hair(rng):
     p_obb = pops_of(obb)
     p_aabb = pops_of(aabb)
     assert p_obb * 2 <= p_aabb, (p_obb, p_aabb)
-
-
-def test_hair_pallas_kernel_matches_xla(rng):
-    """VERDICT r4 #3: hair on the TPU kernel path. The packet kernel
-    with typed curve leaves (traverse/pallas_hair.py, interpret mode)
-    must agree with the XLA cluster walk — same cluster decomposition,
-    same cone math over the same tessellation. Grazing rays may flip
-    at f32 rounding; gate at <=1% disagreement and exact t elsewhere."""
-    for flat in (False, True):
-        verts, idx = _hair_ball(rng, n_curves=80)
-        rays = _rays(rng, 600)
-        cs = _commit(verts, idx, "obb", flat=flat)
-        assert cs.hair_pallas
-        a = et.scene_intersect(cs, rays, isa="pallas")
-        b = et.scene_intersect(cs, rays, isa="xla")
-        va = np.asarray(a.valid)
-        vb = np.asarray(b.valid)
-        dis = va != vb
-        assert dis.mean() <= 0.01, f"valid mismatch {dis.sum()}"
-        m = va & vb
-        np.testing.assert_allclose(np.asarray(a.t)[m], np.asarray(b.t)[m],
-                                   rtol=1e-4, atol=1e-5)
-        # occluded flavor
-        oa = np.asarray(et.scene_occluded(cs, rays, isa="pallas"))
-        ob = np.asarray(et.scene_occluded(cs, rays, isa="xla"))
-        assert (oa != ob).mean() <= 0.01

@@ -1,27 +1,19 @@
-"""Mixed-scene fast-path dispatch (VERDICT r4 #3).
+"""Mixed-scene kernel dispatch.
 
-Scenes carrying hair / instances / user geometry / filters / MB must
-NOT knock the triangle accel off the rowtrace2/pallas kernel path:
-scene_intersect now runs the kernel for the triangle accel and folds
-the other accels on top, and intersection filters ride the restart
-wavefront (scene.py:_intersect_filter_restart) instead of forcing the
-XLA chunked path. These tests force the kernel dispatch in interpret
-mode (tri_accel=bvh4.rowtrace + a tiny ROWTRACE_MIN_RAYS) and gate on
-exact agreement with the XLA reference fold."""
+Scenes carrying hair / instances / user geometry / filters must NOT
+knock the triangle accel off the kernel path: scene_intersect runs the
+kernel for the triangle accel and folds the other accels on top, and
+intersection filters ride the restart wavefront
+(scene.py:_intersect_filter_restart) instead of forcing the XLA chunked
+path. These tests select the kernel path with the NumPy twin in place of
+the CUDA kernel (conftest `twin_kernel`) and gate on agreement with the
+XLA reference fold."""
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 import embree_tpu as et
-from embree_tpu.scene import scene as scene_mod
 from embree_tpu.scene.curves import BezierCurves
 from embree_tpu.verify.fixtures import triangle_sphere
-
-
-@pytest.fixture
-def small_rowtrace(monkeypatch):
-    monkeypatch.setattr(scene_mod, "ROWTRACE_MIN_RAYS", 256)
-    yield
 
 
 def _rays(rng, n=1024, extent=3.0):
@@ -46,7 +38,8 @@ def _hair_ball(rng, n_curves=40):
 
 def _check(cs, rays, atol=1e-5):
     """Kernel-dispatch result == XLA fold result."""
-    a = et.scene_intersect(cs, rays, isa="pallas")
+    assert cs.gpu is not None
+    a = et.scene_intersect(cs, rays)
     b = et.scene_intersect(cs, rays, isa="xla")
     np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
     m = np.asarray(b.valid)
@@ -56,27 +49,26 @@ def _check(cs, rays, atol=1e-5):
     ga, gb = np.asarray(a.geom_id)[m], np.asarray(b.geom_id)[m]
     tie = ~np.isclose(np.asarray(a.t)[m], np.asarray(b.t)[m], rtol=1e-6)
     assert ((ga == gb) | tie).all()
-    occ_a = np.asarray(et.scene_occluded(cs, rays, isa="pallas"))
+    occ_a = np.asarray(et.scene_occluded(cs, rays))
     occ_b = np.asarray(et.scene_occluded(cs, rays, isa="xla"))
     np.testing.assert_array_equal(occ_a, occ_b)
 
 
-def test_tris_plus_hair_on_rowtrace(rng, small_rowtrace):
+def test_tris_plus_hair_on_kernel(rng, twin_kernel):
     verts, idx = triangle_sphere((0, 0, 0), 1.6, 16)
     hv, hi = _hair_ball(rng)
-    dev = et.Device("ignore_config_files=1,tri_accel=bvh4.rowtrace,"
-                    "hair_accel=obb")
+    dev = et.Device("ignore_config_files=1,hair_accel=obb")
     s = et.Scene(dev)
     s.attach(et.TriangleMesh(verts, idx))
     s.attach(BezierCurves(hv, hi, tessellation_rate=6))
     cs = s.commit()
-    assert cs.rowtrace is not None and cs.hairs
+    assert cs.hairs
     _check(cs, _rays(rng))
 
 
-def test_tris_plus_instance_on_rowtrace(rng, small_rowtrace):
+def test_tris_plus_instance_on_kernel(rng, twin_kernel):
     verts, idx = triangle_sphere((0, 0, 0), 1.0, 12)
-    dev = et.Device("ignore_config_files=1,tri_accel=bvh4.rowtrace")
+    dev = et.Device("ignore_config_files=1")
     inner = et.Scene(dev)
     inner.attach(et.TriangleMesh(verts, idx))
     inner.commit()
@@ -85,11 +77,11 @@ def test_tris_plus_instance_on_rowtrace(rng, small_rowtrace):
     s.attach(et.TriangleMesh(verts, idx))
     s.attach(et.Instance(inner, xf))
     cs = s.commit()
-    assert cs.rowtrace is not None and cs.instances
+    assert cs.instances and cs.instances[0].child.gpu is not None
     _check(cs, _rays(rng, extent=4.0))
 
 
-def test_tris_plus_user_on_rowtrace(rng, small_rowtrace):
+def test_tris_plus_user_on_kernel(rng, twin_kernel):
     from embree_tpu.scene.geometry import UserGeometry
 
     verts, idx = triangle_sphere((0, 0, 0), 1.4, 12)
@@ -115,18 +107,18 @@ def test_tris_plus_user_on_rowtrace(rng, small_rowtrace):
         z = jnp.zeros_like(th)
         return ok, th, z, z, ng
 
-    dev = et.Device("ignore_config_files=1,tri_accel=bvh4.rowtrace")
+    dev = et.Device("ignore_config_files=1")
     s = et.Scene(dev)
     s.attach(et.TriangleMesh(verts, idx))
     s.attach(UserGeometry(8, bounds_fn, intersect_fn))
     cs = s.commit()
-    assert cs.rowtrace is not None and cs.users
+    assert cs.users
     _check(cs, _rays(rng))
 
 
-def test_filter_restart_on_pallas(rng):
-    """Transparency filter via the restart wavefront on the pallas
-    packet path: exact agreement with the XLA chunked filter path."""
+def test_filter_restart_on_kernel(rng, twin_kernel):
+    """Transparency filter via the restart wavefront on the kernel path:
+    exact agreement with the XLA chunked filter path."""
     verts, idx = triangle_sphere((0, 0, 0), 1.5, 16)
     dev = et.Device("ignore_config_files=1")
     s = et.Scene(dev)
@@ -138,7 +130,7 @@ def test_filter_restart_on_pallas(rng):
         return (prim % 2) == 0
 
     rays = _rays(rng, n=512)
-    a = et.scene_intersect(cs, rays, isa="pallas", filter_fn=filt)
+    a = et.scene_intersect(cs, rays, filter_fn=filt)
     b = et.scene_intersect(cs, rays, isa="xla", filter_fn=filt)
     np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
     m = np.asarray(b.valid)
@@ -150,7 +142,7 @@ def test_filter_restart_on_pallas(rng):
     assert (np.asarray(a.prim_id)[m] % 2 == 0).all()
 
 
-def test_filter_restart_reject_all_and_accept_all(rng):
+def test_filter_restart_reject_all_and_accept_all(rng, twin_kernel):
     verts, idx = triangle_sphere((0, 0, 0), 1.5, 10)
     dev = et.Device("ignore_config_files=1")
     s = et.Scene(dev)
@@ -160,13 +152,13 @@ def test_filter_restart_reject_all_and_accept_all(rng):
     ref = et.scene_intersect(cs, rays, isa="xla")
 
     h = et.scene_intersect(
-        cs, rays, isa="pallas",
+        cs, rays,
         filter_fn=lambda org, d, t, u, v, ng, geom, prim:
             jnp.zeros_like(t, bool))
     assert not np.asarray(h.valid).any()
 
     h = et.scene_intersect(
-        cs, rays, isa="pallas",
+        cs, rays,
         filter_fn=lambda org, d, t, u, v, ng, geom, prim:
             jnp.ones_like(t, bool))
     np.testing.assert_array_equal(np.asarray(h.valid),

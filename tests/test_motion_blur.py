@@ -113,51 +113,6 @@ def test_multisegment_four_timesteps(rng):
                                    atol=2e-6)
 
 
-def test_mb_pallas_kernel_matches_xla(rng):
-    """VERDICT r2 #5: the pallas MB packet kernel (interpret mode on
-    CPU; the TPU dispatch path) must reproduce the XLA MB traversal —
-    per-ray times, N-timestep segment lerp leaves, conservative
-    time-range node unions."""
-    import embree_tpu as et
-    from embree_tpu.scene.geometry import TriangleMeshMB
-
-    # grid of triangles swinging through 3 timesteps (kinked motion)
-    base, idx = _sphere(12)
-    base = np.asarray(base, np.float32)
-    t0 = base
-    t1 = base + np.array([0.8, 0.3, 0.0], np.float32)
-    t2 = base + np.array([1.6, -0.4, 0.0], np.float32)
-    dev = et.Device("ignore_config_files=1")
-    s = et.Scene(dev)
-    s.attach(TriangleMeshMB(indices=idx, timesteps=[t0, t1, t2]))
-    cs = s.commit()
-
-    n = 2048
-    org = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
-    org[:, 2] = 3.0
-    d = np.zeros((n, 3), np.float32)
-    d[:, 2] = -1.0
-    rays = et.make_rays(org, d)
-    times = rng.uniform(0, 1, n).astype(np.float32)
-
-    ref = et.scene_intersect(cs, rays, isa="xla", time=times)
-    got = et.scene_intersect(cs, rays, isa="pallas", time=times)
-    # belt-and-braces: drive the kernel directly too (interpret mode)
-    from embree_tpu.traverse.pallas_mb import intersect_mb_pallas
-    assert cs.mb_pallas is not None
-    direct = intersect_mb_pallas(cs.mb_pallas, cs.mb, rays, times,
-                                 interpret=True)
-    np.testing.assert_array_equal(np.asarray(direct.valid),
-                                  np.asarray(ref.valid))
-    np.testing.assert_array_equal(np.asarray(got.valid),
-                                  np.asarray(ref.valid))
-    m = np.asarray(ref.valid)
-    np.testing.assert_allclose(np.asarray(got.t)[m],
-                               np.asarray(ref.t)[m], rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(got.prim_id)[m],
-                                  np.asarray(ref.prim_id)[m])
-
-
 def test_temporal_splits_mb4d(rng):
     """VERDICT r4 #5: object-vs-temporal split competition. Two prim
     clusters swap positions over time, so a single union topology is

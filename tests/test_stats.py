@@ -6,9 +6,11 @@ from embree_tpu.core import stats as st
 from embree_tpu.verify.fixtures import triangle_sphere
 
 
-def test_stat_counters_accumulate():
+def test_stat_counters_accumulate(twin_kernel):
+    """The kernel path's per-block counters (NumPy twin in place of the
+    CUDA kernel) accumulate into the STAT3 table."""
     verts, idx = triangle_sphere((0, 0, 0), 1.0, 8)
-    dev = et.Device("ignore_config_files=1,isa=pallas")
+    dev = et.Device("ignore_config_files=1,isa=cuda")
     scene = et.Scene(dev)
     scene.attach(et.TriangleMesh(verts, idx))
     scene.commit()
@@ -29,6 +31,8 @@ def test_stat_counters_accumulate():
         assert s.shadow.travs == n
         assert s.normal.trav_nodes > 0
         assert s.normal.trav_prims > 0
+        assert s.shadow.trav_nodes > 0
+        assert s.normal.stack_overflows == 0
         s.print("  ")  # smoke: the shutdown report formatter
     finally:
         s.enable(False)

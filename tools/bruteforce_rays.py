@@ -1,46 +1,24 @@
-"""Host brute-force ground truth for specific rays of the bench scene."""
-import os, sys
+"""Host brute-force ground truth for specific rays of the bench scene.
+
+    python tools/bruteforce_rays.py RAY_INDEX [RAY_INDEX ...]
+"""
+import os
+import sys
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
-from embree_tpu.verify.fixtures import triangle_sphere
+from bench import N_RAYS, SCENE_RES, headline_rays
+from embree_tpu.verify.fixtures import bruteforce_closest, triangle_sphere
 
-nrays = 1 << 21
-rng = np.random.default_rng(0xBE7C4)
-verts, idx = triangle_sphere((0.0, 0.0, 0.0), 2.0, 707)
-d = rng.normal(size=(nrays, 3)).astype(np.float32)
-d /= np.linalg.norm(d, axis=1, keepdims=True)
-org = rng.uniform(-3.0, 3.0, (nrays, 3)).astype(np.float32)
+verts, idx = triangle_sphere((0.0, 0.0, 0.0), 2.0, SCENE_RES)
+org, d = headline_rays(N_RAYS)
 
-v = np.asarray(verts, np.float64)
+v = np.asarray(verts)
 i = np.asarray(idx)
-v0 = v[i[:, 0]]; v1 = v[i[:, 1]]; v2 = v[i[:, 2]]
-e1 = v1 - v0
-e2 = v2 - v0
-ng = np.cross(e1, e2)
-
-for r in [int(a) for a in sys.argv[1:]]:
-    o = org[r].astype(np.float64)
-    dd = d[r].astype(np.float64)
-    den = ng @ dd
-    c = v0 - o
-    tnum = np.einsum("ij,ij->i", ng, c)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        t = tnum / den
-    p = o + t[:, None] * dd
-    w = p - v0
-    d00 = np.einsum("ij,ij->i", e1, e1)
-    d01 = np.einsum("ij,ij->i", e1, e2)
-    d11 = np.einsum("ij,ij->i", e2, e2)
-    d20 = np.einsum("ij,ij->i", w, e1)
-    d21 = np.einsum("ij,ij->i", w, e2)
-    det = d00 * d11 - d01 * d01
-    u = (d11 * d20 - d01 * d21) / det
-    vv = (d00 * d21 - d01 * d20) / det
-    ok = (den != 0) & (t > 0) & (u >= -1e-9) & (vv >= -1e-9) \
-        & (u + vv <= 1 + 1e-9)
-    if ok.any():
-        k = np.argmin(np.where(ok, t, np.inf))
-        print(f"ray {r}: HIT prim={k} t={t[k]:.6f} u={u[k]:.4f} v={vv[k]:.4f}")
-    else:
-        print(f"ray {r}: MISS")
+rows = [int(a) for a in sys.argv[1:]]
+t, prim = bruteforce_closest(v[i[:, 0]], v[i[:, 1]], v[i[:, 2]],
+                             org[rows], d[rows])
+for r, tr, pr in zip(rows, t, prim):
+    print(f"ray {r}: HIT prim={pr} t={tr:.6f}" if pr >= 0 else
+          f"ray {r}: MISS")

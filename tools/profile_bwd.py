@@ -1,7 +1,7 @@
 """Time the fwd / fwd+bwd split of the headline workload.
 
 Isolates where the bench.py fwd+bwd step spends time:
-  fwd        — scene_intersect (rowtrace2) alone
+  fwd        — scene_intersect (the traversal kernel on a GPU) alone
   bwd_old    — bench.py r3 loss: differentiable per-triangle scene copy
                (vertices -> tris gathers) + reeval_hit packed gather
   bwd_new    — reeval_hit_verts: one composed rays->corner-vertex gather
@@ -16,24 +16,12 @@ import numpy as np
 
 
 def timeit(f, *a, reps=6):
-    out = f(*a)
-    _ = float(np.asarray(jax_sum(out)))
+    import jax
+    jax.block_until_ready(f(*a))
     t0 = time.perf_counter()
     for _i in range(reps):
-        out = f(*a)
-        _ = float(np.asarray(jax_sum(out)))
+        jax.block_until_ready(f(*a))
     return (time.perf_counter() - t0) / reps
-
-
-def jax_sum(out):
-    import jax.numpy as jnp
-    leaves = [x for x in (out if isinstance(out, tuple) else (out,))]
-    flat = []
-    import jax
-    for leaf in jax.tree.leaves(leaves):
-        if leaf.dtype.kind == "f":
-            flat.append(jnp.sum(leaf))
-    return sum(flat)
 
 
 def main():
